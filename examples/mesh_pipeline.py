@@ -8,12 +8,12 @@ Runs the full distributed composition the framework is built around
       -> Student-t conditional predictive        [C7]
 
 with per-phase wall-clock and (optionally) a parity check against the
-single-device pipeline. On a machine without a TPU slice, emulate a mesh:
+single-device pipeline. On a machine without several GPUs, emulate a mesh:
 
     python examples/mesh_pipeline.py --devices 8 --cpu --n-train 256
 
-On a real slice, drop --cpu and the same script runs over ICI (`jax.devices()`
-must report >= --devices chips; multi-host pods call
+On a multi-GPU host, drop --cpu and the same script runs over the GPUs
+(`jax.devices()` must report >= --devices; multi-host launches call
 snngp.parallel.init_distributed first).
 
 Architectures: --arch mlp (any --image-size; x is flattened) or

@@ -9,8 +9,7 @@ reports held-out NLL after every batch alongside the wall-clock of the
 incremental update vs a full refit. At demo sizes both timings are
 compile-dominated (each round is a new shape); the asymptotic gap is the
 point — at N=16384, m=512 the extension is two O(N^2) triangular solves
-(sub-second) where the refit re-factorizes in O(N^3) (~100 s one-shot,
-RESULTS.md).
+where the refit re-factorizes in O(N^3).
 
 Usage:
     python examples/online_regression.py --n0 256 --batch 64 --rounds 6
@@ -61,8 +60,7 @@ def main():
     y_mean, y_std = float(y[:args.n0].mean()), float(y[:args.n0].std())
 
     def get_kernel_fn(w, b, l):
-        return get_mlp_kernel(3, act="relu", w_std=w, b_std=b, last_w_std=l,
-                              trainable_inputs=False)
+        return get_mlp_kernel(3, act="relu", w_std=w, b_std=b, last_w_std=l)
 
     kernel = NNGPKernel(get_kernel_fn, 1.5, 0.3, 1.0)
     lik = (StudentTLikelihood(2.0, 2.0) if args.method == "tp"

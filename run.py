@@ -1,9 +1,11 @@
 """CLI entry point (rebuilds the reference's run.py).
 
-Device pre-flags: on TPU the reference's ``-g/--gpu`` (CUDA_VISIBLE_DEVICES)
-becomes ``-d/--devices`` (number of mesh devices); ``-f/--fraction`` maps to
+Device pre-flags: the reference's ``-g/--gpu`` (CUDA_VISIBLE_DEVICES, one
+process per GPU) becomes ``--devices`` (number of devices in the mesh the
+training loops shard over); ``-f/--fraction`` maps to
 XLA_PYTHON_CLIENT_MEM_FRACTION unchanged. Both must be handled *before*
-importing JAX (reference run.py:10-20).
+importing JAX (reference run.py:10-20). Select GPUs with
+CUDA_VISIBLE_DEVICES as usual.
 """
 
 import argparse
@@ -31,7 +33,7 @@ import snngp.cli  # noqa: E402  (imports JAX)
 
 
 def main(raw_args):
-    parser = argparse.ArgumentParser(description="TPU-native Scale Mixtures of NNGP")
+    parser = argparse.ArgumentParser(description="Scale Mixtures of NNGP")
     subparsers = parser.add_subparsers(dest="command", metavar="command", required=True)
     snngp.cli.add_subparser(subparsers)
 

@@ -70,9 +70,8 @@ def _add_train_parser(subparsers):
                         "train/valid steps. snngp pins 'highest' (true "
                         "fp32) globally because GP Grams need it, but "
                         "finite-SGD ensemble training does not: 'default' "
-                        "uses the TPU MXU's fast bf16 passes (~6x the "
-                        "fp32 matmul rate on v5e; RESULTS.md round 3) at "
-                        "NN-training-grade numerics. 'highest' matches "
+                        "lets XLA use the GPU's TF32 tensor-core matmuls "
+                        "at NN-training-grade numerics. 'highest' matches "
                         "the reference's fp32 CUDA training bit-for-ulp")
 
 
@@ -177,7 +176,7 @@ def _train_main(args):
         logger.log(f"[{0:3d}]  Valid NLL: {valid_nll:.6f}  Valid ACC: {valid_acc:.2f}")
         best_epoch, best_nll, best_acc = 0, valid_nll, valid_acc
 
-        from tqdm import tqdm, trange
+        from snngp.utils.training import tqdm, trange
         for epoch in trange(1, args.max_epoch + 1, desc="Epoch", ncols=0,
                             disable=args.quite):
             total_nll = 0.
@@ -265,7 +264,7 @@ def _test_main(args):
     test_loader = DataLoader(x_test, y_test, batch_size=args.num_batch, shuffle=False)
 
     nll, corrects = 0., 0
-    from tqdm import tqdm
+    from snngp.utils.training import tqdm
     for xb, yb in tqdm(test_loader, desc="Test", leave=False, ncols=0,
                        disable=args.quite):
         xb = jnp.asarray(xb)

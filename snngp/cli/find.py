@@ -22,7 +22,6 @@ from __future__ import annotations
 import functools
 
 import numpy as np
-import pandas as pd
 
 import jax
 import jax.numpy as jnp
@@ -73,6 +72,15 @@ def add_subparser(subparsers):
     parser.add_argument("-s",   "--seed",        type=int, default=10)
     parser.add_argument("-q",   "--quite",       default=False, action="store_true")
     parser.add_argument("-c",   "--comment",     type=str, default="")
+
+
+def _format_table(table, rows, cols):
+    """(alpha x beta) NLL table as aligned text: beta across, alpha down."""
+    cells = [[""] + [str(c) for c in cols]]
+    cells += [[str(r)] + [f"{v:.4f}" for v in row]
+              for r, row in zip(rows, np.asarray(table, np.float64))]
+    width = max(len(c) for line in cells for c in line)
+    return "\n".join(" ".join(c.rjust(width) for c in line) for line in cells)
 
 
 @jax.jit
@@ -228,7 +236,7 @@ def main(args):
                     logger.log(f"\n{w_std}-{b_std}-{eps}: "
                                f"{i * jl * kl + j * kl + k + 1} / {total} "
                                f"({i+1}/{il}, {j+1}/{jl}, {k+1}/{kl})")
-                    logger.log(f"{pd.DataFrame(table, index=args.alpha_list, columns=args.beta_list).round(4)}\n")
+                    logger.log(f"{_format_table(table, args.alpha_list, args.beta_list)}\n")
                     logger.log(f"({min_t}): {min_tv:.4f}")
                     logger.log(f"({min_g}): {min_gv:.4f}")
 

@@ -58,9 +58,8 @@ DATASETS_DICT = {
     "svhn/imbalanced": ("svhn_cropped", "imbalanced", ("exp", .5)),
     "svhn/noisy_label": ("svhn_cropped", "noisy_label", 0.1),
     # Offline-friendly synthetic datasets (ours; not in the reference).
-    # synthetic32 is the CIFAR-shaped (32x32x3) variant: it exercises the
-    # fused 32x32 Pallas conv kernels in the classification pipeline with no
-    # cached data.
+    # synthetic32 is the CIFAR-shaped (32x32x3) variant: it runs the
+    # classification pipeline at CIFAR resolution with no cached data.
     **_variants("synthetic", ood=(1, 2)),
     **_variants("synthetic32", ood=(1, 2)),
 }

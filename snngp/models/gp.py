@@ -75,7 +75,7 @@ class SVSP:
         eigendecomposes the regularized train Gram, so it stays finite on
         fp32 Grams whose smallest eigenvalue dips below -r (where a Cholesky
         factorization NaNs the whole batch — observed on the design-scale
-        synthetic pool, RESULTS.md round 5). Eigenvalues are floored at
+        synthetic pool). Eigenvalues are floored at
         max_eig * fp32-eps: a no-op on well-conditioned Grams, a bounded
         pseudo-inverse on numerically indefinite ones. When a distributed
         ``chol_fn`` is installed the factorization path is kept (eigh does
@@ -95,7 +95,7 @@ class SVSP:
         # reference's exact path, spax/models.py:40); a stop-gradient
         # diagonal lift when a training step drags the fp32 min eigenvalue
         # below -eps, where the factorization would NaN the whole ELBO
-        # (observed at nd=8192/ni=256 design scale, RESULTS.md round 5).
+        # (observed at nd=8192/ni=256 design scale).
         k_ii_inv = inv_psd(psd_safety_lift(add_jitter(k_ii, eps)),
                            chol_fn=self.chol_fn)                 # [I, I]
         a_b = k_bi @ k_ii_inv                                # [B, I]

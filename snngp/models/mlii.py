@@ -3,11 +3,10 @@
 The reference trains kernel scales by full-batch gradient ML-II — jax.grad
 through Gram build + factorization in one differentiable computation
 (``experiments/regression/train.py:61-67``) — which caps N at whatever a
-single reverse-mode factorization fits in memory. At north-star N the Gram
-is assembled in [block, block] fused-kernel tiles
-(:func:`snngp.ops.pallas.myrtle_gram.myrtle_gram_tiled`) and factored by the
-donated in-place kernel — no reverse-mode path exists through either. This
-module computes the SAME gradient in closed form:
+single reverse-mode factorization fits in memory. At larger N the Gram is
+assembled in [block, block] tiles (:func:`snngp.nn.full.tiled_gram`) and
+factored by the donated in-place kernel — no reverse-mode path exists
+through either. This module computes the SAME gradient in closed form:
 
     dL/dtheta = <G, dK/dtheta>,    G = dL/dK
 
@@ -27,12 +26,12 @@ coefficient is the chain rule through Sigma = (b/a) S of the reference's
 
 The scale gradients then cost:
 
-* ONE augmented tiled assembly per step — the fused kernel emits
-  (K, dK/dw_std, dK/db_std) in a single pass (~3x a forward assembly;
-  ``snngp/ops/pallas/myrtle_gram.py`` ``_myrtle_call(grads=True)``);
-  dK/dlast_w_std = (2/last) K is closed form and needs NO contraction:
-  <S^{-1}, K> = N - eps tr(S^{-1}) and alpha^T K alpha = q - eps |alpha|^2.
-* ONE in-place factorization (donated buffer, fits north-star N on a chip).
+* ONE augmented tiled assembly per step — each tile is (K, dK/dw_std,
+  dK/db_std) from two forward-mode jvp passes through the plain tier
+  (:func:`jvp_aug_fn`); dK/dlast_w_std = (2/last) K is closed form and needs
+  NO contraction: <S^{-1}, K> = N - eps tr(S^{-1}) and
+  alpha^T K alpha = q - eps |alpha|^2.
+* ONE in-place factorization (donated buffer).
 * O(N^3) panel solves streaming S^{-1} column panels through the
   memory-lean triangular solve for the <S^{-1}, dK/dtheta> contractions —
   never materializing S^{-1} on device.
@@ -40,8 +39,8 @@ The scale gradients then cost:
   of the scalar marginal as a function of (q, logdet S)).
 
 Memory envelope: device peak is the factor (~N^2) + an [N, panel] solve
-carry — the same as the forward north-star pipeline; host holds the three
-tiled assemblies (RAM or crash-resumable memmaps).
+carry; the host holds the three tiled assemblies (RAM or crash-resumable
+memmaps).
 """
 
 from __future__ import annotations
@@ -59,7 +58,7 @@ from snngp.models import params as P
 from snngp.models.bijectors import positive
 
 __all__ = ["marginal_nll_from_scalars", "gram_cotangent_coeffs",
-           "tiled_aug_gram", "full_gram_mlii_value_and_grad",
+           "jvp_aug_fn", "tiled_aug_gram", "full_gram_mlii_value_and_grad",
            "MLIIFullState", "mlii_fit_full"]
 
 
@@ -101,105 +100,42 @@ def gram_cotangent_coeffs(q, n, ab=None):
     return 1.0 / (2.0 * n_f), c_aa
 
 
-def tiled_aug_gram(aug_fn: Callable, x, *, block: int,
-                   resume_dir: Optional[str] = None, log=None,
-                   profile_fn: Optional[Callable] = None
+def jvp_aug_fn(get_kernel_fn: Callable) -> Callable:
+    """Augmented block function ``aug(x1, x2, w_std, b_std, last_w_std) ->
+    (K, dK/dw_std, dK/db_std)`` by forward-mode ``jax.jvp`` through the
+    plain kernel tier.
+
+    ``get_kernel_fn(w_std, b_std, last_w_std) -> kernel_fn`` is the same
+    builder :class:`snngp.models.kernels.NNGPKernel` takes (e.g.
+    ``lambda w, b, l: arch.get_myrtle_kernel(5, w_std=w, b_std=b,
+    last_w_std=l)``). Each tangent is one jvp pass, which carries a tangent
+    state beside the primal through the recursion; the primal of the first
+    pass is K."""
+
+    def aug(x1, x2, w_std, b_std, last_w_std):
+        w = jnp.asarray(w_std, jnp.float32)
+        b = jnp.asarray(b_std, jnp.float32)
+        f = lambda wv, bv: get_kernel_fn(wv, bv, last_w_std)(x1, x2,
+                                                             get="nngp")
+        k, dkw = jax.jvp(lambda wv: f(wv, b), (w,), (jnp.ones_like(w),))
+        _, dkb = jax.jvp(lambda bv: f(w, bv), (b,), (jnp.ones_like(b),))
+        return k, dkw, dkb
+
+    return aug
+
+
+def tiled_aug_gram(aug_fn: Callable, x, *, block: int, args=(),
+                   resume_dir: Optional[str] = None, log=None
                    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """Assemble (K, dK/dw_std, dK/db_std) host arrays from fixed-shape
-    augmented-kernel tile dispatches.
-
-    ``aug_fn(x1_block, x2_block) -> (k, dkw, dkb)`` device tiles of shape
-    [block, block] (e.g. the fused Myrtle augmented pass,
-    :func:`snngp.ops.pallas.myrtle_gram.myrtle_gram_scale_grads`). Symmetric:
-    only upper-triangular tiles are dispatched and mirrored — all three
-    outputs are symmetric because d/dtheta of a symmetric K is symmetric.
-
-    ``profile_fn(x_block) -> per-block precompute`` (e.g.
-    :func:`~snngp.ops.pallas.myrtle_gram.myrtle_profile_tangents`) caches the
-    hyperparameter-dependent but PAIR-independent variance-profile recursion
-    once per block per step: block i appears in ~n/block tiles, and without
-    the cache every tile dispatch recomputes both sides' profiles (VERDICT
-    r4 weak #2 — measured 30% of augmented assembly time at N=2048). When
-    given, tiles dispatch as ``aug_fn(x1, x2, profiles=(prof_i, prof_j))``.
-
-    ``resume_dir`` makes the assembly crash-resumable exactly like
-    :func:`myrtle_gram_tiled`: three ``.npy`` memmaps plus a block-done
-    bitmap, flushed per block (at north-star sizes one augmented assembly
-    is hours; remote workers die transiently). Dispatch is depth-1
-    pipelined: tile t+1 is enqueued before tile t is fetched.
-    """
-    n = x.shape[0]
-    todo = [(i, j) for i in range(0, n, block) for j in range(i, n, block)]
-
-    prof_cache: Dict[int, object] = {}
-
-    def prof(i):
-        if i not in prof_cache:
-            prof_cache[i] = profile_fn(blk(i))
-        return prof_cache[i]
-
-    def blk(i):
-        piece = x[i:i + block]
-        if piece.shape[0] < block:
-            piece = jnp.pad(piece, ((0, block - piece.shape[0]),)
-                            + ((0, 0),) * (x.ndim - 1))
-        return piece
-
-    names = ("k", "dkw", "dkb")
-    done = None
-    if resume_dir is None:
-        outs = [np.zeros((n, n), np.float32) for _ in names]
-    else:
-        os.makedirs(resume_dir, exist_ok=True)
-        paths = [os.path.join(resume_dir, f"aug_{nm}.npy") for nm in names]
-        done_path = os.path.join(resume_dir, "aug.done.npy")
-        if all(os.path.exists(p) for p in paths) and os.path.exists(done_path):
-            outs = [np.lib.format.open_memmap(p, mode="r+") for p in paths]
-            done = np.load(done_path)
-            if outs[0].shape != (n, n) or done.shape[0] != len(todo):
-                raise ValueError(
-                    f"{resume_dir} holds a {outs[0].shape} assembly / "
-                    f"{done.shape[0]}-tile bitmap; expected {(n, n)} / "
-                    f"{len(todo)} — different data or block size")
-            if log is not None:
-                log(f"tiled_aug_gram: resuming, {int(done.sum())}/"
-                    f"{len(todo)} tiles already done")
-        else:
-            outs = [np.lib.format.open_memmap(p, mode="w+", dtype=np.float32,
-                                              shape=(n, n)) for p in paths]
-            done = np.zeros(len(todo), bool)
-            np.save(done_path, done)
-
-    def commit(t, i, j, tiles):
-        h = min(block, n - i)
-        w = min(block, n - j)
-        for out, tile in zip(outs, tiles):
-            piece = np.asarray(tile)
-            out[i:i + h, j:j + w] = piece[:h, :w]
-            if j > i:
-                out[j:j + w, i:i + h] = piece[:h, :w].T
-        if done is not None:
-            for out in outs:
-                out.flush()
-            done[t] = True
-            np.save(done_path, done)
-        if log is not None and (t % 8 == 0 or t == len(todo) - 1):
-            log(f"tiled_aug_gram: tile {t + 1}/{len(todo)}")
-
-    pending = None
-    for t, (i, j) in enumerate(todo):
-        if done is not None and done[t]:
-            continue
-        if profile_fn is None:
-            tiles = aug_fn(blk(i), blk(j))           # async dispatch
-        else:
-            tiles = aug_fn(blk(i), blk(j), profiles=(prof(i), prof(j)))
-        if pending is not None:
-            commit(*pending)
-        pending = (t, i, j, tiles)
-    if pending is not None:
-        commit(*pending)
-    return tuple(outs)
+    """Assemble (K, dK/dw_std, dK/db_std) host arrays from [block, block]
+    tiles of ``aug_fn(x1_block, x2_block, *args) -> (k, dkw, dkb)`` (e.g.
+    :func:`jvp_aug_fn` with ``args=(w_std, b_std, last_w_std)``) through the
+    library assembler :func:`snngp.nn.full.tiled_gram`: upper-triangle tiles
+    only, mirrored, crash-resumable under ``resume_dir`` (files
+    ``aug_<i>.npy`` and ``aug.done.npy``)."""
+    from snngp.nn.full import tiled_gram
+    return tiled_gram(aug_fn, jnp.asarray(x), args=args, tile=block,
+                      chunk=1, resume_dir=resume_dir, name="aug", log=log)
 
 
 def _f64_frob(a: np.ndarray, b: np.ndarray, chunk: int = 1 << 22) -> float:
@@ -354,25 +290,18 @@ class MLIIFullState:
         return cls(P.unflatten_named(groups["param"]), opt, step)
 
 
-def mlii_fit_full(aug_builder: Callable, x, y, *, steps: int, lr: float,
+def mlii_fit_full(aug_fn: Callable, x, y, *, steps: int, lr: float,
                   block: int, init_hyper: Dict[str, float], eps: float,
                   ab: Optional[Tuple[float, float]] = None,
                   panel: int = 2048, resume_dir: Optional[str] = None,
-                  profile_builder: Optional[Callable] = None,
                   log=print):
     """Full-Gram ML-II Adam loop at tiled scale.
 
-    ``aug_builder(w_std, b_std, last_w_std) -> aug_fn`` where
-    ``aug_fn(x1_blk, x2_blk) -> (k, dkw, dkb)`` device tiles — e.g.
-    ``lambda w, b, l: lambda a, c: myrtle_gram_scale_grads(a, c, depth=5,
-    act="relu", w_std=w, b_std=b, last_w_std=l)``.
-
-    ``profile_builder(w_std, b_std) -> profile_fn`` (optional) enables the
-    per-block variance-profile cache: profiles depend on the CURRENT
-    hyperparameters, so the cache is rebuilt each step but shared across
-    all ~(n/block)^2/2 tiles within it (see :func:`tiled_aug_gram`); the
-    aug_fn must then accept ``profiles=`` like
-    :func:`~snngp.ops.pallas.myrtle_gram.myrtle_gram_scale_grads`.
+    ``aug_fn(x1_blk, x2_blk, w_std, b_std, last_w_std) -> (k, dkw, dkb)``
+    device tiles, e.g. ``jvp_aug_fn(lambda w, b, l:
+    arch.get_myrtle_kernel(5, w_std=w, b_std=b, last_w_std=l))``. The
+    hyperparameters ride as traced arguments, so every step reuses one
+    compile.
 
     Parameters live in UNCONSTRAINED space behind the softplus bijector —
     the same storage convention as ``SPR.init_params`` — so this matches the
@@ -426,14 +355,12 @@ def mlii_fit_full(aug_builder: Callable, x, y, *, steps: int, lr: float,
     for step in range(start, steps):
         t0 = time.time()
         c = read(params)
-        aug_fn = aug_builder(c["w_std"], c["b_std"], c["last_w_std"])
-        prof_fn = (profile_builder(c["w_std"], c["b_std"])
-                   if profile_builder is not None else None)
         step_dir = (os.path.join(resume_dir, f"step{step:03d}")
                     if resume_dir else None)
-        k, dkw, dkb = tiled_aug_gram(aug_fn, x, block=block,
-                                     resume_dir=step_dir, log=log,
-                                     profile_fn=prof_fn)
+        hyper = tuple(jnp.asarray(c[k_], jnp.float32)
+                      for k_ in ("w_std", "b_std", "last_w_std"))
+        k, dkw, dkb = tiled_aug_gram(aug_fn, x, block=block, args=hyper,
+                                     resume_dir=step_dir, log=log)
         t_asm = time.time() - t0
         loss, g_c = full_gram_mlii_value_and_grad(
             k, dkw, dkb, y, last_w_std=c["last_w_std"], eps=c["eps"],

@@ -53,7 +53,7 @@ def fit_spr(model, params, memory_lean: bool = False,
 
     ``memory_lean=True`` targets single-device Grams too big for the
     default path's working set (which holds K plus up to two factors —
-    3 n^2; at the 50k north star that is ~29 GB, far past a 16 GB v5e).
+    3 n^2; at N = 50k that is 30 GB).
     The Gram is staged once to host RAM, and each factorization runs
     through :func:`snngp.parallel.cholesky.inplace_blocked_cholesky`
     (donated buffer, ~n^2 + panels peak), re-uploading K between the
@@ -71,13 +71,13 @@ def fit_spr(model, params, memory_lean: bool = False,
     factor (an extra [N, N] — the price of extending the data-dependent
     ``d``). Not supported together with ``memory_lean``. Size ceiling: an
     extendable Student-t fit keeps TWO resident [N, N] factors (main +
-    scaled-Gram) plus the Gram during fitting — ~3 n^2 fp32, i.e. ~12k x 12k
-    per 16 GB chip. Past that, refit with ``memory_lean=True`` (extension at
+    scaled-Gram) plus the Gram during fitting — ~3 n^2 fp32. Past what the
+    device holds, refit with ``memory_lean=True`` (extension at
     memory-lean scale means a fresh fit over the grown set).
 
     ``gram`` optionally supplies a precomputed train Gram (host numpy — e.g.
-    a crash-resumable :func:`snngp.ops.pallas.myrtle_gram.myrtle_gram_tiled`
-    memmap — or a device array); the kernel is then never evaluated for the
+    a crash-resumable :func:`snngp.nn.full.tiled_gram` memmap — or a device
+    array); the kernel is then never evaluated for the
     train block. It must equal ``K(x_data, x_data)`` for the SAME params, at
     fp32: the fitted state stores solved quantities, not the inputs, so a
     mismatched Gram yields silently wrong predictions.
@@ -87,8 +87,8 @@ def fit_spr(model, params, memory_lean: bool = False,
     diag(k_tt))``. Default 0.0 keeps the reference's exact arithmetic. At
     north-star N the fp32 posterior variance (~1e-7 of a ~0.027-scale prior)
     sits below the cancellation noise of the [N]-long contraction and can go
-    (slightly) negative — RESULTS.md round 3 measured an indefinite full
-    covariance at N=32768 — so large-N pipelines pass ~1e-6.
+    (slightly) negative — an indefinite full covariance was observed at
+    N=32768 — so large-N pipelines pass ~1e-6.
 
     ``t_jitter`` is the absolute jitter on the scaled Gram ``(b/a) K`` whose
     factor defines the Student-t data scale ``d`` (the reference hardcodes
@@ -232,7 +232,7 @@ class FittedSPR:
         """:meth:`predict` from precomputed Gram pieces: ``k_td`` [n, N] is
         K(x_test, x_train), ``k_tt_diag`` [n] the prior test variance —
         for pipelines that assemble Grams outside the kernel-fn path (the
-        north-star fused tiled assembly, ``examples/cifar_myrtle.py``).
+        tiled Myrtle assembly, ``examples/cifar_myrtle.py``).
 
         Variance ordering caveat: with only the diagonal supplied this uses
         the streaming form ``k_tt_diag - sum(v*v)`` rather than

@@ -1,4 +1,4 @@
-"""Architecture builders (TPU-native replacement for experiments/nt_kernels.py).
+"""Architecture builders (replacement for experiments/nt_kernels.py).
 
 Each ``get_*_kernel`` mirrors the corresponding reference builder
 (``experiments/nt_kernels.py:21-103``) and returns a ``kernel_fn(x1, x2,
@@ -13,6 +13,8 @@ reference ``experiments/ensemble/train.py:57-65``).
 
 from __future__ import annotations
 
+import math
+
 from snngp.nn import layers as L
 
 __all__ = [
@@ -22,6 +24,8 @@ __all__ = [
     "get_conv_resnet_kernel",
     "get_dense_resnet_kernel",
     "get_myrtle_kernel",
+    "pair_tiles",
+    "state_budget",
     "get_mlp_layer",
     "get_cnn_layer",
     "get_conv_resnet_layer",
@@ -123,170 +127,112 @@ def _as_kernel_fn(builder):
     return get_kernel
 
 
-def _min_fused_n() -> int:
-    """Pallas fused-Gram dispatch threshold: below this the XLA tier wins on
-    compile latency; above it the fused kernel wins on HBM traffic. Override
-    with SNNGP_PALLAS_MIN_N (set huge to disable dispatch)."""
-    import os
-    return int(os.environ.get("SNNGP_PALLAS_MIN_N", "256"))
+# kernel_fn builders on the matched-pixel tier: same arguments as the layer
+# builders above.
+get_mlp_kernel = _as_kernel_fn(get_mlp_layer)
+get_cnn_kernel = _as_kernel_fn(get_cnn_layer)
+get_conv_resnet_kernel = _as_kernel_fn(get_conv_resnet_layer)
+get_dense_resnet_kernel = _as_kernel_fn(get_dense_resnet_layer)
 
 
-def _fused_backend_ok() -> bool:
-    """Fused Pallas dispatch targets TPU. SNNGP_PALLAS_FORCE=1 engages it on
-    any backend (pair with the kernels' INTERPRET=True on CPU) — used by the
-    fused-tier CLI tests, which would otherwise only ever exercise the XLA
-    tier off-TPU."""
-    import os
+# Bytes of full-tier pixel-pair state one Myrtle block may hold where the
+# device reports no memory limit (the CPU backend).
+FIXED_STATE_BUDGET = 1 << 30
+# Share of the device's memory limit one block's pixel-pair state may take.
+# The forward keeps about three copies of the state alive (input moment,
+# padded stencil input, activation output) and a rematerialized backward
+# about twice that, so 1/16 leaves room for the rest of the program.
+STATE_BUDGET_SHARE = 16
 
+
+def state_budget() -> int:
+    """Per-block budget for the full tier's [n1, n2, hw, hw] state: a share
+    of the default device's ``memory_stats()["bytes_limit"]``, or
+    :data:`FIXED_STATE_BUDGET` where the device reports none."""
     import jax
-    return (jax.default_backend() == "tpu"
-            or os.environ.get("SNNGP_PALLAS_FORCE") == "1")
+    stats = jax.devices()[0].memory_stats() or {}
+    limit = stats.get("bytes_limit")
+    return int(limit) // STATE_BUDGET_SHARE if limit else FIXED_STATE_BUDGET
 
 
-def _use_fused_mlp(x1, x2, get):
+def pair_tiles(n1: int, n2: int, hw: int, budget: int):
+    """Tile shape (t1, t2) for a Myrtle block whose full-tier state
+    (4 * n1 * n2 * hw^2 bytes) exceeds ``budget``; None when it fits.
+
+    The tile is as square as the budget allows, so the per-tile recompute
+    of each side's [t, hw, hw] self-covariance stays a small share."""
+    per_pair = 4 * hw * hw
+    if per_pair * n1 * n2 <= budget:
+        return None
+    pairs = max(1, budget // per_pair)
+    t1 = max(1, min(n1, math.isqrt(pairs)))
+    t2 = max(1, min(n2, pairs // t1))
+    return t1, t2
+
+
+def _pair_tiled(fn, x1, x2, t1, t2, symmetric):
+    """fn(x1, x2) as a ``lax.map`` over [t1, t2] pair tiles, each under
+    ``jax.checkpoint``: forward and reverse mode both hold one tile's state
+    at a time. Symmetric blocks compute the upper-triangle tiles only and
+    mirror them (t1 == t2 there)."""
     import jax
-    return (get == "nngp" and x1.ndim == 2
-            and min(x1.shape[0], x2.shape[0]) >= _min_fused_n()
-            and _fused_backend_ok())
+    import jax.numpy as jnp
+    import numpy as np
+    from jax import lax
 
+    from snngp.nn.full import pad_rows
 
-def get_mlp_kernel(num_hiddens, num_class=1, act="relu", w_std=1.0, b_std=0.0,
-                   last_w_std=1.0, width=512, trainable_inputs=True):
-    """MLP kernel_fn with TPU auto-dispatch to the Pallas fused Gram kernel
-    (snngp/ops/pallas/gram.py) for large nngp blocks; falls back to the
-    reference-tier recursion elsewhere (CPU, small N, ntk requests).
+    n1, n2 = x1.shape[0], x2.shape[0]
+    a = pad_rows(x1, t1).reshape((-1, t1) + x1.shape[1:])
+    b = pad_rows(x2, t2).reshape((-1, t2) + x2.shape[1:])
+    m1, m2 = a.shape[0], b.shape[0]
+    if symmetric:
+        ii, jj = np.triu_indices(m1)
+    else:
+        ii, jj = (g.ravel() for g in np.indices((m1, m2)))
+    tile_fn = jax.checkpoint(lambda ij: fn(a[ij[0]], b[ij[1]]))
+    tiles = lax.map(tile_fn, (jnp.asarray(ii, jnp.int32),
+                              jnp.asarray(jj, jnp.int32)))   # [P, t1, t2]
+    if symmetric:
+        slot = np.zeros((m1, m1), np.int32)
+        slot[ii, jj] = np.arange(ii.size)
+        slot[jj, ii] = np.arange(ii.size)
+        lower = np.tril(np.ones((m1, m1), bool), -1)[:, :, None, None]
+        grid = tiles[slot]                                   # [m1, m1, t, t]
+        grid = jnp.where(lower, jnp.swapaxes(grid, -1, -2), grid)
+    else:
+        grid = tiles.reshape(m1, m2, t1, t2)
+    out = grid.transpose(0, 2, 1, 3).reshape(m1 * t1, m2 * t2)
+    return out[:n1, :n2]
 
-    ``trainable_inputs=False`` declares that gradients are only ever taken
-    w.r.t. the scale scalars (the ML-II regression configuration,
-    regression/train.py:62): the fused kernel's backward then runs the
-    forward-mode scalar-tangent Pallas kernel instead of the XLA-tier
-    reverse recursion (~3x forward vs materializing every layer in HBM)."""
-    ref_fn = _as_kernel_fn(get_mlp_layer)(
-        num_hiddens, num_class, act, w_std, b_std, last_w_std, width=width)
-
-    def kernel_fn(x1, x2=None, get="nngp"):
-        x2_eff = x1 if x2 is None else x2
-        if _use_fused_mlp(x1, x2_eff, get):
-            from snngp.ops.pallas.gram import mlp_gram
-            return mlp_gram(x1, x2_eff, depth=num_hiddens, act=act,
-                            w_std=w_std, b_std=b_std, last_w_std=last_w_std,
-                            trainable_inputs=trainable_inputs)
-        return ref_fn(x1, x2, get=get)
-
-    return kernel_fn
-
-
-def get_cnn_kernel(num_hiddens, num_class=1, act="relu", w_std=1.0, b_std=0.0,
-                   last_w_std=1.0, channels=1, trainable_inputs=True):
-    """CNN kernel_fn with TPU auto-dispatch to the fused Pallas conv-Gram
-    kernel (stride-1 SAME 3x3, the reference architecture).
-    ``trainable_inputs=False``: scalar-only gradients via the fused tangent
-    kernel (see :func:`get_mlp_kernel`); keep True for SVSP classification,
-    which trains its inducing inputs."""
-    ref_fn = _as_kernel_fn(get_cnn_layer)(
-        num_hiddens, num_class, act, w_std, b_std, last_w_std, channels=channels)
-
-    def kernel_fn(x1, x2=None, get="nngp"):
-        import jax
-        x2_eff = x1 if x2 is None else x2
-        # hw <= 1024 bound (CIFAR/SVHN 32x32 included): above 256 the kernel
-        # switches to the narrow-tile layout (conv_gram._cnn_gram_pallas) to
-        # stay inside Mosaic's scoped-VMEM budget; beyond 1024 the variance
-        # blocks outgrow VMEM and the XLA tier takes over.
-        if (get == "nngp" and x1.ndim == 4
-                and x1.shape[1] * x1.shape[2] <= 1024
-                and min(x1.shape[0], x2_eff.shape[0]) >= _min_fused_n()
-                and _fused_backend_ok()):
-            from snngp.ops.pallas.conv_gram import cnn_gram
-            return cnn_gram(x1, x2_eff, depth=num_hiddens, act=act,
-                            w_std=w_std, b_std=b_std, last_w_std=last_w_std,
-                            trainable_inputs=trainable_inputs)
-        return ref_fn(x1, x2, get=get)
-
-    return kernel_fn
-
-
-def get_conv_resnet_kernel(num_hiddens, num_class=1, act="relu", w_std=1.0,
-                           b_std=0.0, last_w_std=1.0, k=1):
-    """Conv-WideResNet kernel_fn with TPU auto-dispatch to the fused Pallas
-    tail-block kernel (stride-1 residual blocks in VMEM; strided group
-    boundaries in XLA) for small-image blocks."""
-    ref_fn = _as_kernel_fn(get_conv_resnet_layer)(
-        num_hiddens, num_class, act, w_std, b_std, last_w_std, k=k)
-
-    def kernel_fn(x1, x2=None, get="nngp"):
-        import jax
-        x2_eff = x1 if x2 is None else x2
-        if (get == "nngp" and x1.ndim == 4
-                and x1.shape[1] * x1.shape[2] <= 1024
-                and min(x1.shape[0], x2_eff.shape[0]) >= _min_fused_n()
-                and _fused_backend_ok()):
-            from snngp.ops.pallas.resnet_conv_gram import conv_resnet_gram
-            return conv_resnet_gram(x1, x2_eff, depth=num_hiddens,
-                                    num_class=num_class, act=act, w_std=w_std,
-                                    b_std=b_std, last_w_std=last_w_std)
-        return ref_fn(x1, x2, get=get)
-
-    return kernel_fn
-
-
-def get_dense_resnet_kernel(num_hiddens, num_class=1, act="relu", w_std=1.0,
-                            b_std=0.0, last_w_std=1.0, width=512,
-                            trainable_inputs=True):
-    """Dense-resnet kernel_fn with TPU auto-dispatch to the fused Pallas
-    kernel (resnet mode) for large nngp blocks. ``trainable_inputs=False``:
-    scalar-only gradients via the fused tangent kernel (see
-    :func:`get_mlp_kernel`)."""
-    ref_fn = _as_kernel_fn(get_dense_resnet_layer)(
-        num_hiddens, num_class, act, w_std, b_std, last_w_std, width=width)
-
-    def kernel_fn(x1, x2=None, get="nngp"):
-        x2_eff = x1 if x2 is None else x2
-        if _use_fused_mlp(x1, x2_eff, get):
-            from snngp.ops.pallas.gram import resnet_gram
-            return resnet_gram(x1, x2_eff, depth=num_hiddens, act=act,
-                               w_std=w_std, b_std=b_std, last_w_std=last_w_std,
-                               trainable_inputs=trainable_inputs)
-        return ref_fn(x1, x2, get=get)
-
-    return kernel_fn
 
 def get_myrtle_kernel(depth=5, num_class=1, act="relu", w_std=1.0, b_std=0.0,
-                      last_w_std=1.0, trainable_inputs=True):
-    """Myrtle-{5,7,10} kernel_fn (full spatial-covariance tier with 2x2
-    average pooling + GAP) with TPU auto-dispatch to the fused Pallas kernel
-    (snngp/ops/pallas/myrtle_gram.py; ~20x the XLA tier at 32x32).
+                      last_w_std=1.0):
+    """Myrtle-{5,7,10} kernel_fn on the full spatial-covariance tier (2x2
+    average pooling + GAP, :mod:`snngp.nn.full`), bounded in memory.
 
-    ``trainable_inputs=False``: ML-II scalar-only gradients via the fused
-    tangent kernel (see :func:`get_mlp_kernel`); required for
-    kernel-hyperparameter training at sizes where the XLA-tier reverse
-    recursion would OOM. Compiled fused shapes are 16x16/32x32 (8x8 and
-    other shapes use the XLA full tier)."""
+    The full tier holds a [n1, n2, hw, hw] pixel-pair state: 4 MB per image
+    pair at 32x32. An nngp block whose state exceeds :func:`state_budget`
+    runs as a checkpointed ``lax.map`` over pair tiles (:func:`pair_tiles`),
+    so a [200, 200] SVSP inducing Gram at 32x32 (160 GB of state) trains on
+    one device; smaller blocks run in one piece."""
     from snngp.nn.full import get_myrtle_kernel as _full_myrtle
     ref_fn = _full_myrtle(depth, num_class, act, w_std=w_std, b_std=b_std,
                           last_w_std=last_w_std)
 
     def kernel_fn(x1, x2=None, get="nngp"):
-        import jax
+        symmetric = x2 is None or x2 is x1
         x2_eff = x1 if x2 is None else x2
-        if (get == "nngp" and x1.ndim == 4 and x1.shape[1] == x1.shape[2]
-                and x1.shape[1] in (16, 32)
-                and _fused_backend_ok()):
-            n1, n2 = x1.shape[0], x2_eff.shape[0]
+        if get == "nngp" and x1.ndim == 4:
             hw = x1.shape[1] * x1.shape[2]
-            # The XLA full tier materializes the [n1, n2, hw, hw] spatial
-            # covariance: 4 MB/pair at 32x32 — above ~2 GB of state it is
-            # not a fallback but an OOM, so the fused kernel engages
-            # regardless of the small-N compile-latency threshold (e.g. the
-            # SVSP inducing/cross blocks at CIFAR scale: [100, 200] pairs).
-            full_tier_bytes = 4.0 * n1 * n2 * hw * hw
-            if (min(n1, n2) >= _min_fused_n()
-                    or full_tier_bytes > 2 * 1024 ** 3):
-                from snngp.ops.pallas.myrtle_gram import myrtle_gram
-                return myrtle_gram(x1, x2_eff, depth=depth, act=act,
-                                   w_std=w_std, b_std=b_std,
-                                   last_w_std=last_w_std,
-                                   trainable_inputs=trainable_inputs)
+            tiles = pair_tiles(x1.shape[0], x2_eff.shape[0], hw,
+                               state_budget())
+            if tiles is not None:
+                t1, t2 = tiles
+                if symmetric:
+                    t1 = t2 = min(t1, t2)
+                fn = lambda a, b: ref_fn(a, b, get="nngp")
+                return _pair_tiled(fn, x1, x2_eff, t1, t2, symmetric)
         return ref_fn(x1, x2, get=get)
 
     return kernel_fn

@@ -1,4 +1,4 @@
-"""Compositional NNGP/NTK layers (TPU-native replacement for neural_tangents.stax).
+"""Compositional NNGP/NTK layers (replacement for neural_tangents.stax).
 
 Each layer is a :class:`Layer` with
 

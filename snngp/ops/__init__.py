@@ -1,4 +1,4 @@
-"""Compute core: dense LA, Student-t primitives, MC estimators, Pallas kernels."""
+"""Compute core: dense LA, Student-t primitives, MC estimators."""
 
 from snngp.ops.linalg import (
     jitter, add_jitter, add_diag_reg, logdet, trace, split_kernel,

@@ -3,7 +3,7 @@
 Replaces the reference's scattered ``jnp.linalg.inv`` (``spax/models.py:40``,
 ``spax/likelihoods.py:60``), ``slogdet`` (``spax/utils.py:38-40``) and
 ``neural_tangents.predict.gradient_descent_mse_ensemble``
-(``spax/kernels.py:29-32``) with solve-based primitives that map onto the MXU:
+(``spax/kernels.py:29-32``) with solve-based, matmul-shaped primitives:
 one Cholesky factorization feeds the predictive mean, covariance, quadratic
 form, and log-determinant.
 
@@ -63,10 +63,9 @@ def sym_t(k: jax.Array) -> jax.Array:
     layout-transposing copy between them. ``K.T`` on a symmetric ``K`` is
     mathematically (and — for Grams whose (i, j)/(j, i) entries run the
     same reduction order, e.g. anything built from ``x @ x.T`` — bitwise)
-    a no-op that flips the requested layout instead, cancelling the copy:
-    measured 13% of the fused Gram+Cholesky device time at N=10k on v5e
-    (RESULTS.md round 4). Single-device only: under GSPMD a transpose of a
-    2D-sharded operand reshards instead.
+    a no-op that flips the requested layout instead, cancelling the copy.
+    Single-device only: under GSPMD a transpose of a 2D-sharded operand
+    reshards instead.
     """
     return k.T
 
@@ -162,8 +161,8 @@ def psd_safety_lift(mat: jax.Array, mult: float = 1.0) -> jax.Array:
     Myrtle kernel saturates correlations to near-rank-1 and fp32 Schur
     complements overshoot into small negative eigenvalues (observed
     min eig -1.1e-4 on the [C, B, B] posterior sampling covariance at
-    nd=8192/ni=256 — a plain Cholesky there NaNs the whole ELBO,
-    RESULTS.md round 5). The boost is ``stop_gradient``-ed: gradients flow
+    nd=8192/ni=256 — a plain Cholesky there NaNs the whole ELBO; commit
+    34af68c). The boost is ``stop_gradient``-ed: gradients flow
     through the matrix exactly as without the guard, so the eigh appears
     only in the (stable) forward pass.
     """
@@ -184,7 +183,7 @@ def pinv_psd_eigh(mat: jax.Array) -> jax.Array:
     regularized train Gram, so it stays finite on fp32 Grams whose smallest
     eigenvalue dips below the (trace-relative) regularizer, where a Cholesky
     factorization NaNs every downstream quantity (observed on design-scale
-    inducing Grams, RESULTS.md round 5). Eigenvalues are floored at
+    inducing Grams). Eigenvalues are floored at
     ``max_eig * fp32-eps``: a no-op on well-conditioned input (matches the
     Cholesky inverse to fp32 noise), a bounded pseudo-inverse on
     numerically indefinite input.

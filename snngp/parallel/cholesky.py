@@ -6,10 +6,10 @@ sites (spax/models.py:40, spax/utils.py:39,138) at large N:
 
 - ``blocked_cholesky`` under ``pjit`` with row-sharded operands: GSPMD
   partitions the trailing updates and inserts one [rest, b] panel all-gather
-  per step over ICI.
+  per step over the device interconnect.
 - ``cyclic_cholesky``: explicit ScaLAPACK-style 1D block-cyclic column
   distribution under ``shard_map`` — balanced trailing updates regardless of
-  how far the factorization has progressed, exactly one psum (ICI ring
+  how far the factorization has progressed, exactly one psum (a ring
   all-reduce) per panel step.
 """
 
@@ -40,8 +40,8 @@ def _dividing_block(n: int, target: int = 1024, floor: int = 128):
     north-star sizes the caller rarely controls n to be a power of two
     (e.g. CIFAR-10's 50,000), so when the default block doesn't divide n we
     prefer a slightly smaller one that does (50,000 -> 1,000) over a 10 GB
-    pad copy. Below ``floor`` the panel matmuls get too skinny for the MXU
-    and padding wins again.
+    pad copy. Below ``floor`` the panel matmuls get too skinny to run at
+    matmul rate and padding wins again.
     """
     for b in range(min(target, n), floor - 1, -1):
         if n % b == 0:
@@ -59,9 +59,9 @@ def blocked_cholesky(a: jax.Array, block: Optional[int] = None,
     columns (right-looking factorization never reads above the diagonal):
     ~n^3/6 multiplies total — LAPACK potrf's leading term — instead of the
     n^3 a full-width masked update costs or the n^3/3 of a full-square syrk.
-    Every step is matmul/solve-shaped (MXU-friendly), and under pjit with
-    row-sharded operands GSPMD partitions each trailing update across the
-    mesh with one [rest, b] panel all-gather per step over ICI.
+    Every step is matmul/solve-shaped, and under pjit with row-sharded
+    operands GSPMD partitions each trailing update across the mesh with one
+    [rest, b] panel all-gather per step.
 
     Non-multiple sizes are identity-padded ([[A, 0], [0, I]] factors to
     [[L, 0], [0, I]]) and sliced back. Equivalent to ``jnp.linalg.cholesky``
@@ -71,14 +71,11 @@ def blocked_cholesky(a: jax.Array, block: Optional[int] = None,
     [b, b] triangular inverse + a pure matmul) instead of the [rest, b]
     triangular solve — the MAGMA-style trtri+gemm panel, trading a bounded
     extra rounding term (||inv|| ~ cond(L11), benign for the jittered PSD
-    Grams this factors) for full MXU utilization on the tall operand.
+    Grams this factors) for a plain matmul on the tall operand.
 
     ``block=None`` (default) picks 512 grown so the panel count stays <= 24:
-    the unrolled panel loops emit O(nb^2/2) HLO ops and XLA compile scales
-    with them — measured on v5e (RESULTS.md round 3): nb=16 already costs
-    ~48 s of compile while steady-state run time is insensitive to block
-    size (0.108 s vs 0.110 s at N=16k for block 1024 vs 2048, both ~1.1x
-    the monolithic op). An explicit ``block`` is respected verbatim (tests
+    the unrolled panel loops emit O(nb^2/2) HLO ops and XLA compile time
+    scales with them. An explicit ``block`` is respected verbatim (tests
     exercise many-panel configurations deliberately).
     """
     n0 = a.shape[-1]
@@ -104,8 +101,8 @@ def blocked_cholesky(a: jax.Array, block: Optional[int] = None,
         strip = lkk
         if k + 1 < nb:
             if panel_inverse:
-                # trtri + gemm: L21 = A21 L11^{-T}; the tall operand hits
-                # the MXU as a plain matmul instead of a [rest, b] trsm.
+                # trtri + gemm: L21 = A21 L11^{-T}; the tall operand runs
+                # as a plain matmul instead of a [rest, b] trsm.
                 inv_t = lax.linalg.triangular_solve(
                     lkk, eye, left_side=False, lower=True, transpose_a=True)
                 panel = work[block:, :block] @ inv_t
@@ -144,28 +141,25 @@ def inplace_blocked_cholesky(a: jax.Array,
     layout copy / 49.9% heap fragmentation; the loop-carry form is the
     aliasing XLA actually guarantees).
 
-    This is what makes north-star-size factorizations fit on a single chip:
-    at n = 49152 a fp32 Gram is 9.7 GB — ``jnp.linalg.cholesky`` (or any
-    out-of-place kernel) needs input + output and OOMs a 16 GB v5e, while
-    this kernel runs in ~10 GB (measured: RESULTS.md round 3). Matches the
-    reference's factorization sites (spax/models.py:40, spax/utils.py:138)
-    at scales the reference's torch/GPU stack cannot hold on one device.
+    At n = 50000 a fp32 Gram is 10 GB: ``jnp.linalg.cholesky`` (or any
+    out-of-place kernel) needs input + output, this kernel about one copy.
+    Matches the reference's factorization sites (spax/models.py:40,
+    spax/utils.py:138).
 
     Loop bodies need static slice shapes, so every step works on fixed-size
     full-width [b, n] ROW panels with column masks. Row panels are the
     layout-critical choice: they are contiguous in the default row-major
     layout, so the loop carry keeps the donated buffer's layout and no
     full-matrix layout-conversion copy is inserted (the column-panel form
-    made XLA pick a column-major carry and transpose-copy the 9.7 GB input
-    — a second OOM mode; see RESULTS.md round 3). Consequently the kernel
+    made XLA pick a column-major carry and transpose-copy the full input —
+    a second out-of-memory mode). Consequently the kernel
     computes the UPPER factor U = L^T (A = U^T U, row panels of U are
     column panels of L): the solved panel is zeroed left of the diagonal
     block, which makes the trailing updates mask-free (zero columns
     contribute zero update) and leaves the buffer exactly
     upper-triangular on exit — no final masking pass. The fixed-width
-    updates spend ~3x the multiplies of the shrinking-slice form, but at
-    true-fp32 MXU rate that is seconds at n = 49k, and memory — not flops
-    — is the binding constraint here. The dynamic loop also compiles in
+    updates spend ~3x the multiplies of the shrinking-slice form; the
+    kernel trades them for memory. The dynamic loop also compiles in
     seconds (no unrolling: O(1) HLO ops).
 
     The caller's array is invalidated (donated). Returns the UPPER
@@ -196,7 +190,7 @@ def inplace_blocked_cholesky(a: jax.Array,
     # Leading-dim dynamic_update_slice on a loop carry is the dus pattern
     # XLA's copy-insertion provably keeps in place: measured temp memory is
     # ~3 [b, n] panels, where interior-offset [b, n] updates on the flat
-    # [n, n] carry still left a full-matrix copy (RESULTS.md round 3).
+    # [n, n] carry still left a full-matrix copy.
     a3 = a.reshape(nb, block, n)
 
     def step(k, a3):
@@ -249,9 +243,8 @@ def blocked_triangular_solve(u: jax.Array, b: jax.Array, *,
 
     Why not ``jax.scipy.linalg.solve_triangular``: XLA's expander for a
     monolithic triangular solve materializes a masked full-size copy of the
-    factor plus a scan of staggered RHS temps — measured 12.09 GB of HLO
-    temp (39% fragmentation) against a 4 GiB factor at n = 32768, OOMing
-    the north-star predictive on a 16 GB chip. This panel loop's peak is
+    factor plus a scan of staggered RHS temps, several times the factor's
+    size. This panel loop's peak is
     the factor (argument, never copied) + one [n, block] slice + the
     [n, r] solution carry. Replaces the reference's predictive solve sites
     (spax/likelihoods.py:60, neural_tangents predict via spax/kernels.py:
@@ -323,8 +316,7 @@ def cyclic_cholesky(a: jax.Array, mesh: Mesh, block: int = 512,
     - the owning device factors the diagonal block and solves its panel
       (``L21 L11^T = A21``, rows below the diagonal only),
     - one ``psum`` broadcasts the [N, b] panel over the mesh — XLA lowers
-      this to an ICI all-reduce, i.e. the ring pipeline, and it is the ONLY
-      communication per step,
+      this to an all-reduce, and it is the ONLY communication per step,
     - every device applies the rank-b update to its own local column blocks
       with global index > k, rows (k+1)b..N only (statically sliced; the
       strictly-upper part of each local block is never written and reads as

@@ -19,8 +19,7 @@ __all__ = ["sharded_gram"]
 
 
 def sharded_gram(kernel_fn, x: jax.Array, mesh: Mesh, axis_name: str = "data",
-                 x2: Optional[jax.Array] = None,
-                 check_vma: bool = True) -> jax.Array:
+                 x2: Optional[jax.Array] = None) -> jax.Array:
     """Mesh-sharded Gram: K[i, j] = kernel_fn(x_i, x2_j).
 
     1D mesh: row panels — each device evaluates its row block against the
@@ -35,9 +34,7 @@ def sharded_gram(kernel_fn, x: jax.Array, mesh: Mesh, axis_name: str = "data",
     at equal device count).
 
     ``x``/``x2`` leading dims must be divisible by the respective mesh axis
-    size (pad upstream). ``check_vma=False`` disables shard_map's varying-
-    mesh-axes checking — required when ``kernel_fn`` contains a
-    ``pallas_call`` (its out_shape carries no vma annotation).
+    size (pad upstream).
     """
     if x2 is None:
         x2 = x
@@ -51,7 +48,6 @@ def sharded_gram(kernel_fn, x: jax.Array, mesh: Mesh, axis_name: str = "data",
             local_block, mesh=mesh,
             in_specs=(Pspec(rows_ax), Pspec(cols_ax)),
             out_specs=Pspec(rows_ax, cols_ax),
-            check_vma=check_vma,
         )
         return fn(x, x2)
 
@@ -59,6 +55,5 @@ def sharded_gram(kernel_fn, x: jax.Array, mesh: Mesh, axis_name: str = "data",
         local_block, mesh=mesh,
         in_specs=(Pspec(axis_name), Pspec()),
         out_specs=Pspec(axis_name),
-        check_vma=check_vma,
     )
     return fn(x, x2)

@@ -3,7 +3,7 @@
 The reference's entire device story is env-var GPU selection
 (``run.py:16-20``). Here the first-class runtime is a ``jax.sharding.Mesh``
 over which Gram construction and dense factorizations shard; XLA inserts the
-ICI collectives.
+collectives.
 """
 
 from __future__ import annotations
@@ -31,21 +31,18 @@ def init_distributed(coordinator_address: Optional[str] = None,
     """Multi-host runtime hook (SURVEY.md D1): ``jax.distributed.initialize``.
 
     The reference's device story is env-var GPU selection (``run.py:16-20``);
-    on a TPU pod the controller processes must join a coordination service
-    before ``jax.devices()`` spans the slice. Call this once per process
-    before building meshes. Safe no-op when already initialized or when the
-    runtime is single-process with no coordinator configured (the common
-    single-host / CI case). Returns True when a multi-process runtime is up.
+    in a multi-process launch every process must join a coordination service
+    before ``jax.devices()`` spans all hosts. Call this once per process
+    before building meshes. A multi-process launch is signalled by explicit
+    arguments or by ``JAX_COORDINATOR_ADDRESS``; without either this is a
+    no-op (the single-host case). Returns True when a multi-process runtime
+    is up.
     """
     global _DISTRIBUTED_INITIALIZED
     if _DISTRIBUTED_INITIALIZED:
         return True
     import os
-    # Only explicit coordinator addresses signal a multi-process launch;
-    # TPU_WORKER_HOSTNAMES et al. are set by single-host TPU runtimes too.
-    have_env = any(os.environ.get(k) for k in
-                   ("JAX_COORDINATOR_ADDRESS", "COORDINATOR_ADDRESS",
-                    "MEGASCALE_COORDINATOR_ADDRESS"))
+    have_env = bool(os.environ.get("JAX_COORDINATOR_ADDRESS"))
     if coordinator_address is None and num_processes is None and not have_env:
         return False  # single-process: nothing to join
     try:

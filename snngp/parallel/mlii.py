@@ -1,5 +1,5 @@
 """Mesh-distributed full-Gram ML-II step (SURVEY.md D2-D3 applied to the
-TRAINING path, VERDICT r4 next #4).
+TRAINING path).
 
 Composes the distributed pieces the inference pipeline already uses into one
 jittable training-step gradient:
@@ -56,7 +56,6 @@ def sharded_aug_gram(aug_fn: Callable, x: jax.Array, mesh: Mesh,
         lambda xr, xf: tuple(aug_fn(xr, xf)), mesh=mesh,
         in_specs=(Pspec(axis_name), Pspec()),
         out_specs=(Pspec(axis_name),) * 3,
-        check_vma=False,   # aug_fn may contain a pallas_call (no vma)
     )
     return fn(x, x)
 

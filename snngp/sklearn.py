@@ -234,10 +234,9 @@ class SNNGPClassifier(_EstimatorBase):
                                       self.activation, w_std=w, b_std=b,
                                       last_w_std=l)
         elif self.network == "myrtle":
-            # Same convention as `cls tr -n myrtle`: scalar-only kernel
-            # gradients through the fused Gram kernel (inducing inputs are
+            # Same convention as `cls tr -n myrtle`: the inducing inputs are
             # frozen at their class-proportional init by the optimizer mask
-            # in fit; their fused-path cotangents are exactly zero).
+            # in fit.
             if self.num_hiddens not in (5, 7, 10):
                 raise ValueError(
                     "network='myrtle' uses num_hiddens as the Myrtle depth: "
@@ -247,8 +246,7 @@ class SNNGPClassifier(_EstimatorBase):
 
             def get_kernel_fn(w, b, l):
                 return base(self.num_hiddens, num_class, self.activation,
-                            w_std=w, b_std=b, last_w_std=l,
-                            trainable_inputs=False)
+                            w_std=w, b_std=b, last_w_std=l)
         else:
             from snngp.cli.classification import _base_kernel
             _, base = _base_kernel(self.network)

@@ -3,22 +3,22 @@ reference; first-class here since the north-star metric is kernel+Cholesky
 wall-clock).
 
 ``phase`` accumulates per-phase wall-clock with device synchronization (a
-scalar fetch — plain ``block_until_ready`` can be a no-op through remote
-device tunnels). ``trace`` wraps ``jax.profiler`` capture for perfetto/
-tensorboard inspection.
+scalar fetch of the phase's output). ``trace`` wraps ``jax.profiler``
+capture for perfetto/tensorboard inspection.
 """
 
 from __future__ import annotations
 
 import contextlib
+import subprocess
 import time
 from collections import defaultdict
-from typing import Dict, Optional
+from typing import Dict
 
 import jax
 import jax.numpy as jnp
 
-__all__ = ["Profiler", "trace"]
+__all__ = ["Profiler", "trace", "gpu_name_and_power_limit"]
 
 
 def _sync(value=None):
@@ -27,8 +27,7 @@ def _sync(value=None):
                   if hasattr(l, "dtype")]
         if leaves:
             # Index one element directly: an eager .ravel() is a full device
-            # copy, which transiently doubles memory on north-star-sized
-            # arrays (10 GB Gram -> 20 GB -> OOM on a 16 GB chip).
+            # copy, which transiently doubles memory on a 10 GB Gram.
             lead = leaves[0]
             idx = (0,) * getattr(lead, "ndim", 0)
             float(jnp.sum(lead[idx] if idx else lead))
@@ -77,10 +76,22 @@ class Profiler:
 
 
 @contextlib.contextmanager
-def trace(logdir: Optional[str] = "/tmp/snngp-trace"):
-    """jax.profiler trace capture around a code block."""
+def trace(logdir: str):
+    """jax.profiler trace capture into ``logdir`` around a code block."""
     jax.profiler.start_trace(logdir)
     try:
         yield logdir
     finally:
         jax.profiler.stop_trace()
+
+
+def gpu_name_and_power_limit() -> str:
+    """``nvidia-smi``'s name and power limit of each card, one line each.
+
+    A card set below its maximum power limit runs slower under load, so
+    every timing is reported beside this line."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip()

@@ -16,7 +16,22 @@ from typing import Optional
 
 import numpy as np
 
-__all__ = ["DataLoader", "ReduceLROnPlateau", "Logger", "get_context_summary"]
+__all__ = ["DataLoader", "ReduceLROnPlateau", "Logger", "get_context_summary",
+           "tqdm", "trange"]
+
+
+def tqdm(iterable=None, **kwargs):
+    """Progress bar from the optional ``tqdm`` package; without it, the
+    iterable itself."""
+    try:
+        from tqdm import tqdm as _tqdm
+    except ImportError:
+        return iterable
+    return _tqdm(iterable, **kwargs)
+
+
+def trange(*args, **kwargs):
+    return tqdm(range(*args), **kwargs)
 
 
 class DataLoader:

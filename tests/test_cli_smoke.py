@@ -252,7 +252,7 @@ def test_classification_conv_resnet(tmp_path):
 def test_classification_myrtle_kernel(tmp_path):
     """Myrtle-CNN NNGP classifier (beyond the reference's cnn/resnet surface):
     -nh is the Myrtle depth, inducing inputs stay frozen at their
-    class-proportional init (the fused kernel's gradients are scalar-only)."""
+    class-proportional init (the optimizer masks them out)."""
     from snngp.utils import load_named
 
     ckpt_root = str(tmp_path / "ckpt")
@@ -361,39 +361,3 @@ def test_regression_boston_from_local_cache(tmp_path):
     assert glob.glob(os.path.join(ckpt_dir, "*.npz")), "no checkpoint saved"
     log = open(os.path.join(ckpt_dir, "train.log")).read()
     assert "NLL:" in log and "Traceback" not in log
-
-
-@pytest.mark.slow
-def test_classification_myrtle_fused_tier_restore(tmp_path, monkeypatch):
-    """cls tr/ts/pr with -n myrtle THROUGH THE FUSED KERNEL TIER (VERDICT r3
-    next #3): the 8x8 smoke above exercises the XLA full tier only — this
-    one forces the Pallas dispatch (SNNGP_PALLAS_FORCE + interpret mode on
-    CPU, the same kernel code the TPU compiles) at the 16x16 compiled shape
-    via -r 2 resize of synthetic32, then restores the checkpoint through
-    both serving subcommands."""
-    import snngp.ops.pallas.myrtle_gram as mg
-
-    monkeypatch.setattr(mg, "INTERPRET", True)
-    monkeypatch.setenv("SNNGP_PALLAS_FORCE", "1")
-    monkeypatch.setenv("SNNGP_PALLAS_MIN_N", "1")
-
-    ckpt_root = str(tmp_path / "ckpt")
-    _run_cli([
-        "cls", "tr", "-m", "svtp", "-dn", "synthetic32", "-cr", ckpt_root,
-        "-cn", "myrf", "-n", "myrtle", "-e", "1", "-nd", "48", "-ni", "6",
-        "-nb", "16", "-ns", "2", "-nvs", "4", "-nh", "5", "-r", "2", "-q",
-    ])
-    ckpt_dir = os.path.join(ckpt_root, "myrf")
-    log = open(os.path.join(ckpt_dir, "train.log")).read()
-    assert "nELBO" in log and "Traceback" not in log
-
-    _run_cli(["cls", "ts", "-dn", "synthetic32", "-cd", ckpt_dir,
-              "-nd", "16", "-nb", "16", "-ns", "4", "-q"])
-    test_logs = glob.glob(os.path.join(ckpt_dir, "test", "*.log"))
-    assert test_logs and "ACC:" in open(test_logs[0]).read()
-
-    _run_cli(["cls", "pr", "-dn", "synthetic32", "-cd", ckpt_dir,
-              "-nd", "16", "-nb", "16", "-ns", "4", "-q"])
-    preds = np.load(os.path.join(ckpt_dir, "predictions.npz"))
-    assert preds["proba"].shape[0] == 16
-    np.testing.assert_allclose(preds["proba"].sum(axis=1), 1.0, rtol=1e-4)

@@ -127,19 +127,19 @@ def test_myrtle_bf16_state_close_to_fp32():
 
 @pytest.mark.slow
 def test_scan_tiled_gram_matches_monolithic():
-    """Chunked lax.scan tile assembly (symmetric + cross + remat) equals the
-    one-shot full-tier Gram."""
-    from snngp.nn.full import get_myrtle_kernel, scan_tiled_gram
+    """Chunked lax.scan tile assembly (symmetric + cross, ragged tail
+    chunk) equals the one-shot full-tier Gram."""
+    from snngp.nn.full import get_myrtle_kernel, tiled_gram
 
     x = jax.random.normal(jax.random.PRNGKey(31), (12, 8, 8, 3), jnp.float32)
     kfn = get_myrtle_kernel(5, 1, "relu", w_std=1.0, b_std=0.1, last_w_std=1.0)
     want = np.asarray(kfn(x, x, get="nngp"))
-    got = scan_tiled_gram(kfn, x, tile=4, chunk=3)
+    got = tiled_gram(kfn, x, tile=4, chunk=4)
     np.testing.assert_allclose(got, want, atol=1e-5)
 
     x2 = jax.random.normal(jax.random.PRNGKey(32), (8, 8, 8, 3), jnp.float32)
     want = np.asarray(kfn(x, x2, get="nngp"))
-    got = scan_tiled_gram(kfn, x, x2, tile=4, chunk=4, remat=True)
+    got = tiled_gram(kfn, x, x2, tile=4, chunk=4)
     np.testing.assert_allclose(got, want, atol=1e-5)
 
 

@@ -1,8 +1,7 @@
-"""Randomized cross-tier consistency: for random shapes/hyperparameters the
-three execution tiers (reference jnp, Pallas-interpret, full-covariance) must
-agree — the cheap invariant that guards every kernel rewrite."""
+"""Randomized consistency: for random shapes/hyperparameters the plain tier
+agrees with a float64 enumeration, and the full-covariance tier with the
+matched-pixel tier — the cheap invariant that guards every kernel rewrite."""
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -10,56 +9,44 @@ import pytest
 from snngp.nn import arch
 from snngp.nn import full as F
 from snngp.nn.layers import kernel_fn_of
+from snngp.nn.reference import cnn_gram_f64, mlp_gram_f64
 
 
 @pytest.mark.parametrize("seed", range(4))
-def test_mlp_pallas_interpret_fuzz(seed):
-    import snngp.ops.pallas.gram as G
-    G.INTERPRET = True
-    try:
-        rng = np.random.RandomState(seed)
-        n1 = int(rng.randint(3, 40))
-        n2 = int(rng.randint(3, 40))
-        d = int(rng.randint(2, 20))
-        depth = int(rng.randint(1, 5))
-        act = ["relu", "erf"][seed % 2]
-        w, b, l = rng.uniform(0.3, 2.0, 3)
-        x1 = jnp.asarray(rng.randn(n1, d), jnp.float32)
-        x2 = jnp.asarray(rng.randn(n2, d), jnp.float32)
-        K_p = G.mlp_gram(x1, x2, depth=depth, act=act, w_std=w, b_std=b,
-                         last_w_std=l, tile=(8, 8))
-        kfn = arch.get_mlp_kernel(depth, 1, act, w_std=w, b_std=b, last_w_std=l)
-        np.testing.assert_allclose(np.asarray(K_p),
-                                   np.asarray(kfn(x1, x2, get="nngp")),
-                                   rtol=2e-5, atol=2e-6)
-    finally:
-        G.INTERPRET = False
+def test_mlp_gram_fuzz_vs_f64_enumeration(seed):
+    """Random shapes, depths and scales: the fp32 MLP Gram equals the
+    float64 layer-by-layer enumeration."""
+    rng = np.random.RandomState(seed)
+    n1, n2 = int(rng.randint(3, 40)), int(rng.randint(3, 40))
+    d = int(rng.randint(2, 20))
+    depth = int(rng.randint(1, 5))
+    act = ["relu", "erf"][seed % 2]
+    w, b, l = rng.uniform(0.3, 2.0, 3)
+    x1, x2 = rng.randn(n1, d), rng.randn(n2, d)
+    kfn = arch.get_mlp_kernel(depth, 1, act, w_std=w, b_std=b, last_w_std=l)
+    got = kfn(jnp.asarray(x1, jnp.float32), jnp.asarray(x2, jnp.float32))
+    np.testing.assert_allclose(np.asarray(got),
+                               mlp_gram_f64(x1, x2, depth, act, w, b, l),
+                               rtol=2e-5, atol=2e-6)
 
 
 @pytest.mark.parametrize("seed", range(3))
-def test_cnn_pallas_interpret_fuzz(seed):
-    import snngp.ops.pallas.conv_gram as CG
-    CG.INTERPRET = True
-    try:
-        rng = np.random.RandomState(100 + seed)
-        n1 = int(rng.randint(3, 16))
-        n2 = int(rng.randint(3, 16))
-        h = int(rng.randint(3, 9))
-        w_ = int(rng.randint(3, 9))
-        c = int(rng.randint(1, 4))
-        depth = int(rng.randint(1, 4))
-        act = ["relu", "erf"][seed % 2]
-        w, b, l = rng.uniform(0.3, 1.8, 3)
-        x1 = jnp.asarray(rng.randn(n1, h, w_, c), jnp.float32)
-        x2 = jnp.asarray(rng.randn(n2, h, w_, c), jnp.float32)
-        K_p = CG.cnn_gram(x1, x2, depth=depth, act=act, w_std=w, b_std=b,
-                          last_w_std=l, tile=(8, 8))
-        kfn = kernel_fn_of(arch.get_cnn_layer(depth, 1, act, w, b, l))
-        np.testing.assert_allclose(np.asarray(K_p),
-                                   np.asarray(kfn(x1, x2, get="nngp")),
-                                   rtol=3e-5, atol=3e-6)
-    finally:
-        CG.INTERPRET = False
+def test_cnn_gram_fuzz_vs_f64_enumeration(seed):
+    """Random image shapes, depths and scales: the fp32 matched-pixel CNN
+    Gram equals the float64 pixel-by-pixel enumeration."""
+    rng = np.random.RandomState(100 + seed)
+    n1, n2 = int(rng.randint(3, 16)), int(rng.randint(3, 16))
+    h, w_ = int(rng.randint(3, 9)), int(rng.randint(3, 9))
+    c = int(rng.randint(1, 4))
+    depth = int(rng.randint(1, 4))
+    act = ["relu", "erf"][seed % 2]
+    w, b, l = rng.uniform(0.3, 1.8, 3)
+    x1, x2 = rng.randn(n1, h, w_, c), rng.randn(n2, h, w_, c)
+    kfn = arch.get_cnn_kernel(depth, 1, act, w_std=w, b_std=b, last_w_std=l)
+    got = kfn(jnp.asarray(x1, jnp.float32), jnp.asarray(x2, jnp.float32))
+    np.testing.assert_allclose(np.asarray(got),
+                               cnn_gram_f64(x1, x2, depth, act, w, b, l),
+                               rtol=3e-5, atol=3e-6)
 
 
 @pytest.mark.parametrize("seed", range(3))

@@ -5,7 +5,7 @@ path — jax.grad through Gram build + factorization
 (``experiments/regression/train.py:61-67`` via ``spax/models.py:93-98``) —
 at sizes where both run. The MLP NNGP family (pure-jnp reference recursion)
 keeps the kernel evaluation cheap on CPU; the machinery is kernel-agnostic
-(the north-star pipeline plugs in the fused Myrtle augmented pass).
+(the Myrtle pipeline plugs in the same jvp-based augmented block).
 """
 
 import numpy as np
@@ -19,37 +19,27 @@ from snngp.models.bijectors import positive
 from snngp.models.gp import SPR
 from snngp.models.kernels import NNGPKernel
 from snngp.models.likelihoods import GaussianLikelihood, StudentTLikelihood
-from snngp.models.mlii import (full_gram_mlii_value_and_grad, mlii_fit_full,
-                               tiled_aug_gram)
-from snngp.ops.pallas.gram import _reference_recursion
+from snngp.models.mlii import (full_gram_mlii_value_and_grad, jvp_aug_fn,
+                               mlii_fit_full, tiled_aug_gram)
+from snngp.nn import arch
 
 DEPTH = 3
 ACT = "relu"
 
 
 def _builder(w, b, l):
-    def kfn(a, c, get="nngp"):
-        assert get == "nngp"
-        return _reference_recursion(a, c, DEPTH, ACT, w, b, l)
-    return kfn
+    return arch.get_mlp_kernel(DEPTH, 1, ACT, w_std=w, b_std=b, last_w_std=l)
+
+
+AUG = jvp_aug_fn(_builder)
 
 
 def _aug_builder(w_std, b_std, last_w_std):
-    """(k, dkw, dkb) tiles via forward-mode through the reference recursion
-    — the CPU stand-in for the fused Myrtle augmented pass."""
-    w = jnp.asarray(w_std, jnp.float32)
-    b = jnp.asarray(b_std, jnp.float32)
-    l = jnp.asarray(last_w_std, jnp.float32)
-
-    @jax.jit
-    def aug(x1, x2):
-        f = lambda wv, bv: _reference_recursion(x1, x2, DEPTH, ACT, wv, bv, l)
-        k = f(w, b)
-        _, dkw = jax.jvp(lambda wv: f(wv, b), (w,), (jnp.ones_like(w),))
-        _, dkb = jax.jvp(lambda bv: f(w, bv), (b,), (jnp.ones_like(b),))
-        return k, dkw, dkb
-
-    return aug
+    """(k, dkw, dkb) tiles via forward-mode through the plain recursion at
+    fixed hyperparameters."""
+    hyper = tuple(jnp.asarray(v, jnp.float32)
+                  for v in (w_std, b_std, last_w_std))
+    return jax.jit(lambda x1, x2: AUG(x1, x2, *hyper))
 
 
 def _unconstrained_grads(g_c, params, ab):
@@ -142,11 +132,11 @@ def test_mlii_fit_full_matches_dense_adam(tmp_path):
 
     rdir = str(tmp_path / "mlii")
     quiet = lambda *_args, **_kw: None
-    mlii_fit_full(_aug_builder, x, y, steps=1, lr=lr, block=32,
+    mlii_fit_full(AUG, x, y, steps=1, lr=lr, block=32,
                   init_hyper=dict(HYPER), eps=EPS0, ab=(A0, B0),
                   panel=64, resume_dir=rdir, log=quiet)
     hyper, eps_f, ab_f, losses = mlii_fit_full(
-        _aug_builder, x, y, steps=2, lr=lr, block=32,
+        AUG, x, y, steps=2, lr=lr, block=32,
         init_hyper=dict(HYPER), eps=EPS0, ab=(A0, B0),
         panel=64, resume_dir=rdir, log=quiet)
     assert len(losses) == 1            # resumed: only step 2 ran
@@ -155,31 +145,40 @@ def test_mlii_fit_full_matches_dense_adam(tmp_path):
     assert np.isclose(ab_f[0], want_a, rtol=1e-3)
 
 
-def test_tiled_aug_gram_profile_cache():
-    """profile_fn is called once per BLOCK (not per tile) and the cached
-    per-block precompute reaches aug_fn alongside the right block pair."""
-    x, _ = _data()
-    n, block = x.shape[0], 32
-    ref = tiled_aug_gram(_aug_builder(**HYPER), x, block=block)
+def test_jvp_aug_fn_matches_jacfwd():
+    """The jvp-based augmented block equals K and its forward-mode
+    Jacobian in (w_std, b_std) from jax.jacfwd, for a symmetric and a cross
+    block."""
+    x, _ = _data(n=24)
+    x2 = x[:10] * 0.7
+    w, b, l = (jnp.float32(v) for v in (1.3, 0.4, 0.9))
+    for a, c in ((x, x), (x, x2)):
+        k, dkw, dkb = AUG(a, c, w, b, l)
+        f = lambda wb: _builder(wb[0], wb[1], l)(a, c)
+        jac = jax.jacfwd(f)(jnp.stack([w, b]))            # [n1, n2, 2]
+        np.testing.assert_allclose(k, f(jnp.stack([w, b])), rtol=1e-6)
+        np.testing.assert_allclose(dkw, jac[..., 0], rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(dkb, jac[..., 1], rtol=1e-5, atol=1e-6)
 
-    calls = []
 
-    def profile_fn(xb):
-        calls.append(1)
-        return np.asarray(xb).sum(axis=1)      # any per-block precompute
+def test_tiled_aug_gram_args_reuse_compile():
+    """Hyperparameters passed as traced args: a second assembly with new
+    values reuses the compiled chunk program and matches fixed-value
+    tiles."""
+    from snngp.nn import full as F
 
-    aug0 = _aug_builder(**HYPER)
-
-    def aug(x1, x2, profiles=None):
-        p1, p2 = profiles
-        np.testing.assert_allclose(p1, np.asarray(x1).sum(axis=1), rtol=1e-6)
-        np.testing.assert_allclose(p2, np.asarray(x2).sum(axis=1), rtol=1e-6)
-        return aug0(x1, x2)
-
-    got = tiled_aug_gram(aug, x, block=block, profile_fn=profile_fn)
-    assert len(calls) == -(-n // block)        # once per block, not per tile
-    for a, b in zip(got, ref):
-        np.testing.assert_allclose(a, b, rtol=1e-6)
+    x, _ = _data(n=40)
+    hyper = [jnp.float32(v) for v in (1.3, 0.4, 0.9)]
+    first = tiled_aug_gram(AUG, x, block=16, args=tuple(hyper))
+    run = F._chunk_runner(AUG, 16, True)
+    size = run._cache_size()
+    hyper[0] = jnp.float32(1.1)
+    got = tiled_aug_gram(AUG, x, block=16, args=tuple(hyper))
+    assert run._cache_size() == size
+    want = tiled_aug_gram(_aug_builder(1.1, 0.4, 0.9), x, block=16)
+    for g, w_ in zip(got, want):
+        np.testing.assert_allclose(g, w_, rtol=1e-6)
+    assert not np.allclose(first[1], got[1])
 
 
 def test_tiled_aug_gram_resume(tmp_path):
@@ -196,7 +195,7 @@ def test_tiled_aug_gram_resume(tmp_path):
     done = np.load(done_path)
     done[1] = False
     np.save(done_path, done)
-    kmap = np.lib.format.open_memmap(f"{rdir}/aug_k.npy", mode="r+")
+    kmap = np.lib.format.open_memmap(f"{rdir}/aug_0.npy", mode="r+")
     kmap[:32, 32:] = -1.0
     kmap.flush()
     del kmap

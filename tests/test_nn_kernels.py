@@ -214,16 +214,15 @@ def test_conv_resnet_ntk_matches_finite_width_mc():
 
 
 def test_arch_myrtle_kernel_matches_full_tier():
-    """arch.get_myrtle_kernel (the KERNELS['myrtle'] builder) falls back to
-    the XLA full tier off-TPU and matches full.get_myrtle_kernel exactly;
-    the fused auto-dispatch path itself is covered by
-    tests/test_myrtle_pallas.py in interpret mode."""
+    """arch.get_myrtle_kernel (the KERNELS['myrtle'] builder) runs a block
+    under its memory budget in one piece and matches full.get_myrtle_kernel
+    exactly; the tiled path is covered in tests/test_plain_tiers.py."""
     from snngp.nn.full import get_myrtle_kernel as full_myrtle
     rng = np.random.RandomState(0)
     x1 = jnp.asarray(rng.rand(3, 8, 8, 3), jnp.float32)
     x2 = jnp.asarray(rng.rand(4, 8, 8, 3), jnp.float32)
     kfn = arch.get_myrtle_kernel(5, 1, "relu", w_std=1.2, b_std=0.2,
-                                 last_w_std=0.9, trainable_inputs=False)
+                                 last_w_std=0.9)
     want = full_myrtle(5, 1, "relu", w_std=1.2, b_std=0.2,
                        last_w_std=0.9)(x1, x2, get="nngp")
     got = kfn(x1, x2)

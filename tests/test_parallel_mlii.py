@@ -9,8 +9,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from snngp.models.mlii import full_gram_mlii_value_and_grad, tiled_aug_gram
-from snngp.ops.pallas.gram import _reference_recursion
+from snngp.models.mlii import (full_gram_mlii_value_and_grad, jvp_aug_fn,
+                               tiled_aug_gram)
+from snngp.nn import arch
 from snngp.parallel import get_mesh
 from snngp.parallel.mlii import (distributed_mlii_value_and_grad,
                                  sharded_aug_gram)
@@ -21,18 +22,11 @@ EPS0 = 3e-2
 
 
 def _aug_builder(w_std, b_std, last_w_std):
-    w = jnp.asarray(w_std, jnp.float32)
-    b = jnp.asarray(b_std, jnp.float32)
-    l = jnp.asarray(last_w_std, jnp.float32)
-
-    def aug(x1, x2):
-        f = lambda wv, bv: _reference_recursion(x1, x2, DEPTH, ACT, wv, bv, l)
-        k = f(w, b)
-        _, dkw = jax.jvp(lambda wv: f(wv, b), (w,), (jnp.ones_like(w),))
-        _, dkb = jax.jvp(lambda bv: f(w, bv), (b,), (jnp.ones_like(b),))
-        return k, dkw, dkb
-
-    return aug
+    aug = jvp_aug_fn(lambda w, b, l: arch.get_mlp_kernel(
+        DEPTH, 1, ACT, w_std=w, b_std=b, last_w_std=l))
+    hyper = tuple(jnp.asarray(v, jnp.float32)
+                  for v in (w_std, b_std, last_w_std))
+    return lambda x1, x2: aug(x1, x2, *hyper)
 
 
 def _data(n=64, d=6, seed=0):
